@@ -6,17 +6,15 @@ repo's docs are markdown-first, and this generator renders them to a
 static HTML site with the stdlib-adjacent ``markdown`` + ``pygments``
 packages (no sphinx in the image, and installs are off-limits).
 
-Pages: every guide in ``docs/``, the repo-level README / CHANGELOG /
-ROADMAP / PARITY, and a **generated benchmarks page** that renders the
-committed measurement artifacts (``benchmarks/*.json``) into tables --
-the rendered-benchmarks parity point.
+Pages: every guide in ``docs/`` and the repo-level README / PERF /
+CHANGES / ROADMAP / PARITY. Measurements live in PERF.md, each with the
+card it was taken on.
 
-Run:  python docs/build_site.py        (writes docs/site/)
+Run:  python docs/build_site.py        (writes docs/site/, not committed)
 CI runs it on every push (docs job) and uploads the site artifact.
 """
 
 import html
-import json
 import os
 import re
 
@@ -37,11 +35,10 @@ PAGES = [
      "Coarse-graining"),
     ("docs/migrating_from_hoomd_tf.md", "migrating.html",
      "Migrating from hoomd-tf"),
-    ("docs/performance.md", "performance.html", "TPU performance notes"),
+    ("PERF.md", "performance.html", "Performance (measured)"),
     ("docs/testing.md", "testing.html", "Testing"),
-    (None, "benchmarks.html", "Benchmarks (measured)"),
     ("PARITY.md", "parity.html", "Reference parity map"),
-    ("CHANGELOG.md", "changelog.html", "Changelog"),
+    ("CHANGES.md", "changes.html", "Changes"),
     ("ROADMAP.md", "roadmap.html", "Roadmap"),
 ]
 
@@ -90,7 +87,7 @@ blockquote {{ margin:1em 0; padding:2px 16px; color:var(--muted);
 {pygments}
 </style></head><body><div class="wrap">
 <nav><h1>hoomd_tf_tpu</h1>
-<div class="sub">TPU-native ML+MD framework</div>
+<div class="sub">ML molecular dynamics in JAX</div>
 {nav}</nav>
 <main>{body}</main>
 </div></body></html>
@@ -134,128 +131,12 @@ def render_markdown(text):
     return md.convert(text)
 
 
-def table(rows, cols):
-    """rows: list of dicts; cols: list of (key, header)."""
-    h = ["<table><thead><tr>"]
-    for _, label in cols:
-        h.append(f"<th>{html.escape(label)}</th>")
-    h.append("</tr></thead><tbody>")
-    for r in rows:
-        h.append("<tr>")
-        for key, _ in cols:
-            v = r.get(key, "")
-            if isinstance(v, float):
-                v = f"{v:,.2f}" if abs(v) < 100 else f"{v:,.1f}"
-            elif isinstance(v, list):
-                v = ", ".join(str(x) for x in v)
-            h.append(f"<td>{html.escape(str(v))}</td>")
-        h.append("</tr>")
-    h.append("</tbody></table>")
-    return "".join(h)
-
-
-def benchmarks_page():
-    """Render the committed measurement artifacts, like the
-    reference's sphinx benchmarks.html -- but every number on this
-    page is a committed, reproducible artifact in benchmarks/."""
-    b = os.path.join(ROOT, "benchmarks")
-
-    def load(name):
-        p = os.path.join(b, name)
-        if os.path.exists(p):
-            with open(p) as f:
-                return json.load(f)
-        return None
-
-    parts = ["<h1>Benchmarks (measured)</h1>",
-             "<p>Every table renders a committed JSON artifact from "
-             "<code>benchmarks/</code>; the scripts beside them "
-             "reproduce it. Protocols and the full measurement "
-             "history live in "
-             '<a href="performance.html">TPU performance notes</a>.'
-             "</p>"]
-
-    d = load("scale.json")
-    if d:
-        parts.append("<h2>Single-chip size scaling "
-                     "(<code>scale.json</code>)</h2>")
-        parts.append(f'<p class="note">{html.escape(d["metric"])}; '
-                     f'device {html.escape(str(d["device"]))}.</p>')
-        parts.append(table(d["rows"], [
-            ("n_particles", "particles"),
-            ("steps_per_s", "steps/s"),
-            ("particle_steps_per_s_vs_reference", "vs reference (x)"),
-            ("plan_grid", "plan grid"),
-            ("plan_capacity", "capacity")]))
-
-    d = load("north_star.json")
-    if d:
-        parts.append("<h2>Online CG force matching "
-                     "(<code>north_star.json</code>)</h2>")
-        parts.append(f'<p class="note">{html.escape(d["metric"])}.</p>')
-        parts.append(table(d["results"], [
-            ("n_particles", "particles"),
-            ("model", "model route"),
-            ("train_steps_per_s", "train steps/s"),
-            ("wall_s_per_1000_train_steps", "s / 1000 train steps"),
-            ("loss_before", "loss before"),
-            ("loss_after", "loss after")]))
-        est = d.get("gpu_hoomd_tf_estimate", {})
-        if est:
-            parts.append(
-                '<p class="note">GPU HOOMD-TF comparison bound: '
-                f'{est.get("gpu_hoomd_tf_train_steps_per_s_upper_bound")}'
-                " train-steps/s (derivation in the artifact).</p>")
-
-    d = load("results-tpu.json")
-    if d and isinstance(d, dict) and d.get("results"):
-        parts.append("<h2>Benchmark protocol rows "
-                     "(<code>results-tpu.json</code>)</h2>")
-        rows = d["results"]
-        cols = [("n_particles", "particles"), ("model", "model"),
-                ("nlist_mode", "nlist"), ("steps_per_s", "steps/s")]
-        have = {k for r in rows for k in r}
-        cols = [c for c in cols if c[0] in have]
-        parts.append(table(rows, cols))
-
-    d = load("sharded_scale.json")
-    if d:
-        parts.append("<h2>Sharded-engine scaling, virtual 8-device "
-                     "mesh (<code>sharded_scale.json</code>)</h2>")
-        parts.append(f'<p class="note">{html.escape(d["protocol"])}'
-                     "</p>")
-        parts.append(table(d["rows"], [
-            ("n", "particles"), ("devices", "devices"),
-            ("single_ms", "single ms/step"),
-            ("sharded_ms", "sharded ms/step"),
-            ("speedup", "speedup")]))
-
-    d = load("plan_sweep.json")
-    if d:
-        parts.append("<h2>Plan-sweep cost-model validation "
-                     "(<code>plan_sweep.json</code>)</h2>")
-        parts.append(f'<p class="note">{html.escape(d["metric"])}</p>')
-        parts.append(table(d["rows"], [
-            ("n_particles", "particles"), ("grid", "grid"),
-            ("capacity", "capacity"),
-            ("padded_lanes_M", "padded lanes (M)"),
-            ("predicted_pair_ms", "predicted pair ms"),
-            ("measured_ms_per_step", "measured ms/step"),
-            ("steps_per_s", "steps/s")]))
-
-    return "\n".join(parts)
-
-
 def main():
     os.makedirs(OUT, exist_ok=True)
     css = pygments_css()
     for src, name, title in PAGES:
-        if src is None:
-            body = benchmarks_page()
-        else:
-            with open(os.path.join(ROOT, src)) as f:
-                body = render_markdown(f.read())
-            body = rewrite_links(body)
+        with open(os.path.join(ROOT, src)) as f:
+            body = rewrite_links(render_markdown(f.read()))
         page = TEMPLATE.format(title=html.escape(title),
                                nav=nav_html(name), body=body,
                                pygments=css)

@@ -1,9 +1,9 @@
-"""hoomd_tf_tpu (``htf``): a TPU-native machine-learning molecular-dynamics
-framework with the capabilities of ur-whitelab/hoomd-tf.
+"""hoomd_tf_tpu (``htf``): a machine-learning molecular-dynamics engine in
+JAX that runs on the GPU, with the capabilities of ur-whitelab/hoomd-tf.
 
 Where the reference couples two engines (HOOMD-blue and TensorFlow) through a
 zero-copy GPU buffer scheme, this framework is a single engine: simulation
-state lives in HBM-resident ``jax.Array`` s, and one jitted step fuses the
+state lives in device-resident ``jax.Array`` s, and one jitted step fuses the
 neighbor-list build, ``SimModel.compute`` force evaluation and integration
 (see SURVEY.md section 7). The user-facing API keeps the reference's
 conventions so models written against hoomd-tf transfer directly.
@@ -31,11 +31,11 @@ Typical use::
 __version__ = "0.1.0"
 
 # runtime version gate (the analog of the reference's build-time
-# check_tf_version.py): fail fast on a jax too old for the APIs used here
-# (shard_map, register_dataclass, Pallas TPU).
+# check_tf_version.py): fail fast on a jax older than the one this package
+# is tested with (jax.shard_map, the Pallas Triton route).
 def _check_jax_version():
     import jax as _jax
-    minimum = (0, 5, 0)
+    minimum = (0, 9, 0)
     parts = tuple(int(p) for p in _jax.__version__.split(".")[:3]
                   if p.isdigit())
     if parts < minimum:

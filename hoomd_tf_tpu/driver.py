@@ -17,7 +17,10 @@ import numpy as np
 from .models.simmodel import MolSimModel
 from .ops.box import box_size
 
-__all__ = ["tfcompute"]
+__all__ = ["tfcompute", "NLIST_MODES"]
+
+# neighbor-list strategies accepted by tfcompute.attach(nlist=...)
+NLIST_MODES = ("auto", "n2", "cell", "direct", "cellwise")
 
 
 class tfcompute:
@@ -52,7 +55,7 @@ class tfcompute:
             ``'cell'`` or a :class:`..ops.cell_list.CellList` config,
             ``'direct'`` (wide candidate planes, no selection), or
             ``'cellwise'`` / a :class:`..ops.cellwise.Cellwise` config
-            (slot-resident state; the fastest mode on TPU -- the model
+            (slot-resident state; the pair fast path -- the model
             sees ``NlistPlanes`` rows in *cell-slot order*, re-permuted
             at each repack, with inert ghost rows; models that index
             specific particle rows or reduce raw positions over rows
@@ -70,6 +73,12 @@ class tfcompute:
         """
         if sim is None or sim.state is None:
             raise RuntimeError("Must initialize the simulation first")
+        from .ops.cell_list import CellList
+        if not (nlist is None or isinstance(nlist, CellList) or
+                nlist in NLIST_MODES):
+            raise ValueError(
+                f"nlist={nlist!r}: expected None, a CellList/Cellwise "
+                f"config, or one of {NLIST_MODES}")
         self.sim = sim
         self.nlist_method = nlist
         # r_cut: scalar, or an [ntypes, ntypes] per-type-pair matrix with

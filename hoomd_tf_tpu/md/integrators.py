@@ -2,7 +2,7 @@
 Brownian.
 
 The reference delegates integration to HOOMD (``IntegratorTwoStep``); in the
-single-engine TPU design the integrator is part of the jitted step. Each
+single-engine design the integrator is part of the jitted step. Each
 integrator splits into ``pre_force`` (kick+drift given current forces) and
 ``post_force`` (kick with fresh forces), so the Simulation can interleave
 the force evaluation exactly like HOOMD's two-step integrators do.

@@ -65,7 +65,7 @@ class SlotLayout:
         self.rc_matrix = rc_matrix  # per-type-pair cutoffs (or None)
         self.dynamic_box = bool(dynamic_box)
         # jitted run()-boundary converters (eager op-by-op dispatch is
-        # latency-bound through a remote TPU); cached on the layout so
+        # latency-bound); cached on the layout so
         # repeat runs hit the compile cache
         import jax
         self.pack_jit = jax.jit(self.pack)
@@ -213,11 +213,13 @@ class SlotLayout:
         """Repack the slot assignment from current positions (runs in
         the engine's hot loop every K steps; all static shapes).
 
-        The permutation is applied as ONE block row-gather: column-by-
-        column dynamic gathers cost ~5 ms at 64k (TPU row gathers pay
-        per row), while a single ``[rows, 9]`` block moves all nine
-        state columns for ~1.4 ms (probes/kbench16). Integer columns
-        ride as bitcast f32 (exact round trip)."""
+        The permutation is applied as ONE block row-gather of a
+        ``[rows, 13]`` block that moves all thirteen state columns,
+        instead of one dynamic gather per column. Integer columns ride as
+        bitcast f32 (exact round trip). The forces move with their
+        particles: under the static repack schedule the rebuild lands
+        before the integrator's first half-kick, which reads them. (The
+        virial is only ever summed over particles.)"""
         plan = self.plan
         n_slots = plan.n_slots
         dtype = slot_state.positions.dtype
@@ -237,7 +239,8 @@ class SlotLayout:
             blk = jnp.concatenate([
                 slot_state.positions, slot_state.velocities,
                 f32(aux["orig"])[:, None], slot_state.masses[:, None],
-                f32(slot_state.types)[:, None]], axis=1)
+                f32(slot_state.types)[:, None], slot_state.forces],
+                axis=1)
             g = blk[jnp.clip(src, 0, n_slots - 1)]
             has_c = has[:, None]
             positions = jnp.where(has_c, g[:, :3], centers)
@@ -247,6 +250,7 @@ class SlotLayout:
             masses = jnp.where(has, g[:, 7], jnp.ones((), dtype=dtype))
             types = jnp.where(has, i32(g[:, 8]),
                               jnp.zeros((), jnp.int32))
+            forces = jnp.where(has_c, g[:, 9:13], 0.0)
         else:
             # bitcast packing assumes 32-bit lanes; other dtypes take
             # the per-column gathers
@@ -256,10 +260,11 @@ class SlotLayout:
             types = put(slot_state.types, jnp.zeros((), jnp.int32))
             masses = put(slot_state.masses, jnp.ones((), dtype=dtype))
             orig = put(aux["orig"], jnp.asarray(self.n, jnp.int32))
+            forces = put(slot_state.forces, jnp.zeros((), dtype=dtype))
         valid = has.astype(dtype)
         new_state = dataclasses.replace(
             slot_state, positions=positions, velocities=velocities,
-            types=types, masses=masses)
+            types=types, masses=masses, forces=forces)
         vm = jnp.sqrt(jnp.max(jnp.sum(velocities * velocities, axis=-1)))
         new_aux = {"valid": valid, "orig": orig,
                    "ref": (self._frac(positions, lo, lengths, dtype)

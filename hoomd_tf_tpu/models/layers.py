@@ -63,12 +63,11 @@ class Dense(Layer):
         in_dim, units = k.shape
         if in_dim <= 8 or units <= 8:
             # per-lane MLPs (NN pair potentials) apply Dense over a huge
-            # lane batch with a tiny feature axis; jnp.matmul there
-            # lowers to an MXU dot whose operand layouts materialize the
-            # [lanes, units] intermediates in HBM. Broadcast-multiply +
-            # reduce stays VPU-elementwise, which XLA fuses end-to-end
-            # through the surrounding lane math. Real widths keep the
-            # MXU matmul.
+            # lane batch with a tiny feature axis; a matmul there would
+            # materialize the [lanes, units] intermediates in device
+            # memory. Broadcast-multiply + reduce stays elementwise,
+            # which XLA fuses through the surrounding lane math. Real
+            # widths keep the matmul.
             y = jnp.sum(x[..., :, None] * k, axis=-2)
         else:
             y = jnp.matmul(x, k, preferred_element_type=self.dtype)

@@ -7,9 +7,7 @@ type_j)``. Declaring that structure (instead of writing a generic
 forward-only path in the slot-resident (cellwise) neighbor mode: the
 per-pair force coefficient ``dU/d(r^2)`` comes from one ``jax.jvp`` in
 the same pass, so there is no vjp replay and no candidate-plane
-rematerialization -- measured 1.5x faster than the generic route at 64k
-particles on a TPU v5e (see ops/cellwise.analytic_pair_forces and
-docs/performance.md).
+rematerialization (see ops/cellwise.analytic_pair_forces).
 
 Everywhere else -- packed neighbor lists, the wide-direct planes mode,
 training, CPU -- :class:`PairModel` behaves exactly like a
@@ -52,10 +50,9 @@ class PairModel(SimModel):
         function through a ``proxy_degree``-term interpolant in
         ``1/r^2`` space (see :mod:`..ops.chebyshev`). The model is
         evaluated only at the K nodes per step; the per-lane cost
-        becomes a Clenshaw recurrence -- the difference between an NN
-        pair potential training at ~36 vs 100+ steps/s at 64k
-        particles, and what makes NN pair energies Mosaic-lowerable
-        (the Pallas kernel sees only fused multiply-adds). Untyped
+        becomes a Clenshaw recurrence -- pure fused multiply-adds,
+        which the half-stencil kernel can replay even for NN pair
+        energies (ops/cellwise_pallas.pair_fn_lowers). Untyped
         pair functions need only this; a typed
         ``pair_energy(r2, ti, tj)`` additionally needs
         ``proxy_types=<number of particle types>`` and gets one

@@ -2,7 +2,7 @@
 
 The box convention follows the reference (hoomd-tf ``simmodel.py:597-615``):
 a ``[3, 3]`` array whose rows are ``low``, ``high`` and ``tilt`` factors
-``(xy, xz, yz)``.  The TPU-native rebuild keeps the same convention so user
+``(xy, xz, yz)``.  This rebuild keeps the same convention so user
 ``compute`` functions written against the reference transfer directly, but
 there is no sparse-tensor workaround (that existed only to dodge a TF 2.4
 Keras shape bug).

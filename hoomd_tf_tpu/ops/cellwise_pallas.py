@@ -1,641 +1,288 @@
-"""Pallas TPU kernel for the half-stencil (Newton's-third-law) analytic
-pair-force loop of the cellwise neighbor mode.
+"""Pallas kernel (Triton route) for the Newton half-stencil analytic
+pair forces of the cellwise neighbor mode.
 
-Why a hand kernel here, when the full-stencil XLA form beat one before
-(docs/performance.md): the half stencil evaluates each pair once and
-accumulates BOTH sides -- a row-side reduction over the candidate (lane)
-axis and a candidate-side reduction over the row (sublane) axis of the
-*same* product arrays. XLA cannot multi-output-fuse reductions over
-different axes of one intermediate, so it either materializes the
-``[n_cells, cap, 14*cap]`` products to HBM (~1 GB/step at 64k) or
-rematerializes the pair math twice -- measured 377 steps/s vs the full
-stencil's 439 at 64k, i.e. the lane savings were eaten. Inside a Pallas
-kernel both reductions accumulate in VMEM in one pass over the lanes, so
-the 14/27 lane saving is real.
+Why a kernel: the half stencil evaluates each pair once and accumulates
+BOTH sides -- a row-side sum over the candidate axis and a
+candidate-side sum over the row axis of the *same* product array. XLA
+does not fuse two reductions over different axes of one intermediate
+into one pass, so the pure-XLA ``stencil='half'`` either writes the
+``[n_cells, cap, 14*cap]`` products to memory or evaluates the pair
+math twice. Here both sums accumulate in registers in one pass, so the
+14/27 lane saving of the half stencil is kept.
 
-Division of labor (each part where it is cheapest):
+Division of labor:
 
-- XLA builds the candidate planes (27->14 static rolls + per-direction
-  offsets -- contiguous data movement it handles perfectly);
-- the kernel does the lane math and the dual reductions, emitting one
-  ``[n_cells, 14*cap]`` array per quantity: block 0 = the row-side
-  (forward) sums, blocks 1..13 = the candidate-side (Newton back) sums;
-- XLA applies the 13 inverse rolls pushing each back block onto its home
-  cell and adds everything up.
+- XLA builds the candidate planes (14 static rolls + per-direction
+  offsets -- contiguous data movement);
+- the kernel runs one program per ``(cell, lane chunk)``. It loops over
+  the cell's OCCUPIED rows in tiles of :data:`ROW_TILE` (the loop bound
+  is that cell's own occupancy: real particles fill a prefix of a cell's
+  slots), evaluates the pair function on a ``[ROW_TILE, CHUNK]`` tile,
+  stores each tile's row-side partial sums, and keeps the
+  candidate-side sums of its chunk in registers across the whole row
+  loop, writing them once;
+- XLA adds the row-side partials over chunks, applies the 13 inverse
+  rolls that push each candidate-side block back onto its home cell,
+  and sums everything.
+
+Triton blocks must be powers of two and the candidate width
+``C = 14 * cap`` is not (560 at cap 40). ``C`` is therefore CHUNKED into
+``ceil(C / CHUNK)`` chunks with masked loads and stores: arrays in
+device memory keep their true width, and the only padding is the
+compute on the last chunk's ``ceil(C / CHUNK) * CHUNK - C`` lanes
+(:func:`lane_chunks`), plus the row tile's rounding of each cell's
+occupancy up to a multiple of ``ROW_TILE``.
+
+The user's ``pair_fn`` is replayed inside the kernel from its jaxpr,
+with every closed-over constant hoisted into one operand;
+:func:`pair_fn_lowers` says whether a pair function can be replayed
+here at all.
 
 Replaces the reference's CSR-reshape + per-pair force CUDA kernels
 (``TensorflowCompute.cu:80-209``) as the hot kernel of the framework.
 """
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from .cellwise import (_HALF_OFFS, _relative_coords, _roll_back)
+from .cellwise import _HALF_OFFS, _relative_coords, _roll_back, _roll_offs
 
-__all__ = ["half_stencil_pair_forces"]
+__all__ = ["half_stencil_pair_forces", "lane_chunks", "pair_fn_lowers",
+           "ROW_TILE", "CHUNK"]
+
+# rows per tile and lanes per chunk (powers of two, Triton's rule)
+ROW_TILE = 8
+CHUNK = 128
 
 
-def _kernel(pair_eval, const_shapes, with_types, rcut_matrix, cap, n_blocks,
+def lane_chunks(C, chunk=None):
+    """``(n_chunks, padded_lanes)`` for a ``C``-wide candidate row."""
+    chunk = chunk or CHUNK
+    n = -(-int(C) // chunk)
+    return n, n * chunk
+
+
+def _trace_pair_fn(pair_fn, with_types, dtype):
+    sds = lambda s: jax.ShapeDtypeStruct(s, dtype)
+    args = ([sds((ROW_TILE, CHUNK)), sds((ROW_TILE, 1)), sds((1, CHUNK))]
+            if with_types else [sds((ROW_TILE, CHUNK))])
+    return jax.make_jaxpr(pair_fn)(*args)
+
+
+def _jaxpr_lowers(jaxpr):
+    from jax._src import core as _jcore
+    from jax._src.pallas.triton.lowering import triton_lowering_rules
+    for eqn in jaxpr.eqns:
+        if eqn.primitive not in triton_lowering_rules:
+            return False
+        for v in eqn.outvars:
+            shape = getattr(v.aval, "shape", ())
+            size = int(np.prod(shape)) if shape else 1
+            if len(shape) > 2 or size & (size - 1):
+                return False
+        for sub in _jcore.jaxprs_in_params(eqn.params):
+            if not _jaxpr_lowers(sub):
+                return False
+    return True
+
+
+def pair_fn_lowers(pair_fn, with_types=True, dtype=jnp.float32):
+    """Can the kernel replay ``pair_fn``?  True when every constant it
+    closes over is a scalar (they travel as one operand of scalars) and
+    every primitive of its jaxpr has a Triton lowering and keeps the
+    lanes a rank-2, power-of-two tile (a per-lane hidden axis, as in an
+    MLP pair energy, does not). Decided from the traced jaxpr alone."""
+    try:
+        closed = _trace_pair_fn(pair_fn, with_types, dtype)
+    except (TypeError, ValueError):
+        return False
+    if any(np.size(c) != 1 for c in closed.consts):
+        return False
+    return _jaxpr_lowers(closed.jaxpr)
+
+
+def _kernel(pair_eval, const_dtypes, with_types, rcut_matrix, cap, C,
             rc2, min_r2, needs_virial, needs_energy, *refs):
-    """One grid step: ``B`` cells' rows against their 14-block candidate
-    planes; dual reductions accumulate in VMEM/registers.
-
-    ``pair_eval(consts, r2[, ti, tj])`` is the closure-hoisted pair
-    function: every array the user's ``pair_fn`` closed over (built-in
-    epsilon/sigma scalars, NN weights from the lane-separability probe,
-    ...) arrives through ``refs`` instead of being baked into the kernel
-    jaxpr -- Pallas rejects captured array constants outright.
-
-    Occupancy-predicated row groups: real particles occupy a PREFIX of
-    each cell's slots (the repack ranks them), honest capacity covers
-    the running max (~1.5-2.5x the mean), and the VPU sublane tile is 8
-    rows -- so the row axis is processed in 8-row groups, each guarded
-    by ``pl.when(g * 8 < block_max_occupancy)``. Whole groups of ghost
-    rows (typically 1-3 of 5-6 at 64k) never execute; measured 1.16x on
-    the kernel at the honest 64k fluid state point (probes/kbench14;
-    per-(cell,group) predication loses the cross-cell vectorization and
-    benches SLOWER -- the block-max form keeps it).
-    """
-    C = n_blocks * cap
-    occ_ref = refs[0]
-    gx_ref, gy_ref, gz_ref = refs[1:4]
+    """One program: cell ``program_id(0)``, lane chunk ``program_id(1)``.
+    Row tiles run up to the cell's occupancy; the candidate-side sums of
+    the chunk stay in registers across them."""
+    R, CH = ROW_TILE, CHUNK
+    occ_ref, gx_ref, gy_ref, gz_ref = refs[:4]
     i = 4
     gt_ref = None
     if with_types or rcut_matrix is not None:
         gt_ref = refs[i]
         i += 1
-    consts = []
-    for shp in const_shapes:
-        ref = refs[i]
+    const_ref = None
+    if const_dtypes:
+        const_ref = refs[i]
         i += 1
-        if shp == ():
-            consts.append(ref[0, 0])
-        elif len(shp) == 1:
-            consts.append(ref[:].reshape(shp))
-        else:
-            consts.append(ref[:])
-    out_refs = refs[i:]
+    n_q = (1 if needs_energy else 0) + 3 + (6 if needs_virial else 0)
+    back_refs = refs[i:i + n_q]
+    fwd_refs = refs[i + n_q:i + 2 * n_q]
 
-    gx, gy, gz = gx_ref[:], gy_ref[:], gz_ref[:]          # [B, C]
-    if gt_ref is not None:
-        gt = gt_ref[:]
-        tj = gt[:, None, :]
-    B = gx.shape[0]
-    omax = occ_ref[0, 0]
-    for b in range(1, B):
-        omax = jnp.maximum(omax, occ_ref[b, 0])
+    cell, k = pl.program_id(0), pl.program_id(1)
+    col = k * CH + jnp.arange(CH, dtype=jnp.int32)
+    col_ok = col < C
 
-    for r in out_refs:
-        r[:] = jnp.zeros_like(r)
+    def lanes(ref):
+        return plgpu.load(ref.at[cell, pl.ds(k * CH, CH)], mask=col_ok,
+                          other=0.0)
 
-    zero = jnp.zeros((), dtype=gx.dtype)
-    groups = [(g * 8, min(cap, (g + 1) * 8))
-              for g in range(-(-cap // 8))]
-    for lo_r, hi_r in groups:
-        @pl.when(lo_r < omax)
-        def _(lo_r=lo_r, hi_r=hi_r):
-            w = hi_r - lo_r
-            # rows lo_r:hi_r of every cell vs the full candidate planes
-            qx = gx[:, lo_r:hi_r]
-            qy = gy[:, lo_r:hi_r]
-            qz = gz[:, lo_r:hi_r]
-            dx = gx[:, None, :] - qx[:, :, None]          # [B, w, C]
-            dy = gy[:, None, :] - qy[:, :, None]
-            dz = gz[:, None, :] - qz[:, :, None]
-            d2 = dx * dx + dy * dy + dz * dz
-            row = jax.lax.broadcasted_iota(jnp.int32, (w, C), 0) + lo_r
-            col = jax.lax.broadcasted_iota(jnp.int32, (w, C), 1)
-            not_self = jnp.logical_not((col < cap) & (col == row))[None]
-            ok = (d2 <= rc2) & not_self
-            if gt_ref is not None:
-                ti = gt[:, lo_r:hi_r][:, :, None]
-            if rcut_matrix is not None:
-                # pair_rc2 unrolls the CONCRETE host matrix into
-                # python-scalar mask terms (no array constant reaches
-                # the kernel jaxpr)
-                from .nlist import pair_rc2
-                ok = ok & (d2 <= pair_rc2(ti, tj, rcut_matrix, d2.dtype))
-            r2 = jnp.maximum(d2, min_r2)
-            if with_types:
-                U, dU = pair_eval(consts, r2, ti, tj)
-            else:
-                U, dU = pair_eval(consts, r2)
-            s = jnp.where(ok, dU, zero)
-
-            def dual(prod, fwd_c, back_c, out_ref):
-                """out[:, lo_r:hi_r] = this group's row-side sums;
-                out[:, cap:] accumulates the candidate-side (Newton
-                back) sums of the directed blocks over groups (block
-                0's back side is the self cell's second counting --
-                already covered by the row side)."""
-                out_ref[:, lo_r:hi_r] = fwd_c * jnp.sum(prod, axis=2)
-                back = back_c * jnp.sum(prod, axis=1)     # [B, C]
-                out_ref[:, cap:] = out_ref[:, cap:] + back[:, cap:]
-
-            oi = 0
-            if needs_energy:
-                # the energy lanes (U, its mask select, one dual
-                # reduction) are ~10% of the kernel; the hot loop skips
-                # them on all but logged/final steps and the unused U
-                # math DCEs away
-                g_ = jnp.where(ok, U, zero)
-                dual(g_, 0.5, 0.5, out_refs[0])
-                oi = 1
-            dual(s * dx, 2.0, -2.0, out_refs[oi + 0])
-            dual(s * dy, 2.0, -2.0, out_refs[oi + 1])
-            dual(s * dz, 2.0, -2.0, out_refs[oi + 2])
-            if needs_virial:
-                dual(s * dx * dx, -1.0, -1.0, out_refs[oi + 3])
-                dual(s * dy * dy, -1.0, -1.0, out_refs[oi + 4])
-                dual(s * dz * dz, -1.0, -1.0, out_refs[oi + 5])
-                dual(s * dx * dy, -1.0, -1.0, out_refs[oi + 6])
-                dual(s * dx * dz, -1.0, -1.0, out_refs[oi + 7])
-                dual(s * dy * dz, -1.0, -1.0, out_refs[oi + 8])
-
-
-def _kernel_mm(pair_eval, const_shapes, with_types, rcut_matrix, cap,
-               n_blocks, rc2, min_r2, needs_virial, needs_energy, *refs):
-    """MXU-contraction variant of :func:`_kernel` ("kernel v2a",
-    probes/kbench25): both dual reductions of every channel are
-    CONTRACTIONS of the masked scalar field ``s = dU`` against affine /
-    quadratic functions of the coordinates,
-
-      forward row i:  sum_j s*dx      = (sum_j s*gx_j) - qx_i*(sum_j s)
-      Newton back j:  sum_i s*dx      = gx_j*(sum_i s) - (sum_i s*qx_i)
-      virial xx:      sum_j s*dx*dx   = Sgxx - 2 qx*Sgx + qx^2*S1  (etc)
-
-    so ONE ``[cap, C] x [C, K]`` matmul per cell (G = stacked moment
-    planes) yields every forward channel and ONE ``[K, cap] x [cap, C]``
-    matmul every back channel -- on the MXU, which idles in the v1
-    kernel, cutting the VPU work to dx/d2/pair-fn/mask. Ghost lanes
-    contribute exactly 0 (s is hard-zeroed), so the FAR ghost
-    coordinates never pollute the contractions.
-
-    OPT-IN ONLY (kbench25 verdict): ~1.1x on the kernel at the honest
-    64k state at DEFAULT matmul precision, but TPU DEFAULT is bf16
-    multiplies and the contraction against raw cell-relative
-    coordinates amplifies rounding to ~8e-3 relative force error;
-    Precision.HIGHEST restores 6e-7 but is 1.5x slower than v1. See
-    docs/performance.md round-5 notes.
-
-    Mosaic constraint (bisected in round 5): a sublane-contraction dot
-    plus any other dot inside one ``pl.when`` region ICEs the compiler,
-    so the predicated group loop only computes ``s`` into a VMEM scratch
-    (skipped groups store zeros -- exactly one pass over the scratch
-    either way) and ALL matmuls run unpredicated after the loop (their
-    MAC count is noise on the MXU).
-    """
-    C = n_blocks * cap
-    occ_ref = refs[0]
-    gx_ref, gy_ref, gz_ref = refs[1:4]
-    i = 4
-    gt_ref = None
-    if with_types or rcut_matrix is not None:
-        gt_ref = refs[i]
-        i += 1
-    consts = []
-    for shp in const_shapes:
-        ref = refs[i]
-        i += 1
-        if shp == ():
-            consts.append(ref[0, 0])
-        elif len(shp) == 1:
-            consts.append(ref[:].reshape(shp))
-        else:
-            consts.append(ref[:])
-    n_out = (1 if needs_energy else 0) + 3 + (6 if needs_virial else 0)
-    out_refs = refs[i:i + n_out]
-    s_scr = refs[i + n_out]
-    g_scr = refs[i + n_out + 1] if needs_energy else None
-
-    gx, gy, gz = gx_ref[:], gy_ref[:], gz_ref[:]          # [B, C]
-    if gt_ref is not None:
-        gt = gt_ref[:]
-        tj = gt[:, None, :]
-    B = gx.shape[0]
-    omax = occ_ref[0, 0]
-    for b in range(1, B):
-        omax = jnp.maximum(omax, occ_ref[b, 0])
-
+    gx, gy, gz = lanes(gx_ref), lanes(gy_ref), lanes(gz_ref)
     dtype = gx.dtype
+    tj = lanes(gt_ref)[None, :] if gt_ref is not None else None
+    consts = [const_ref[j].astype(dt) for j, dt in enumerate(const_dtypes)]
+    occ = occ_ref[cell]
     zero = jnp.zeros((), dtype=dtype)
-    groups = [(g * 8, min(cap, (g + 1) * 8))
-              for g in range(-(-cap // 8))]
-    for lo_r, hi_r in groups:
-        @pl.when(lo_r < omax)
-        def _(lo_r=lo_r, hi_r=hi_r):
-            w = hi_r - lo_r
-            qx = gx[:, lo_r:hi_r]
-            qy = gy[:, lo_r:hi_r]
-            qz = gz[:, lo_r:hi_r]
-            dx = gx[:, None, :] - qx[:, :, None]          # [B, w, C]
-            dy = gy[:, None, :] - qy[:, :, None]
-            dz = gz[:, None, :] - qz[:, :, None]
-            d2 = dx * dx + dy * dy + dz * dz
-            row = jax.lax.broadcasted_iota(jnp.int32, (w, C), 0) + lo_r
-            col = jax.lax.broadcasted_iota(jnp.int32, (w, C), 1)
-            not_self = jnp.logical_not((col < cap) & (col == row))[None]
-            ok = (d2 <= rc2) & not_self
-            if gt_ref is not None:
-                ti = gt[:, lo_r:hi_r][:, :, None]
-            if rcut_matrix is not None:
-                from .nlist import pair_rc2
-                ok = ok & (d2 <= pair_rc2(ti, tj, rcut_matrix, d2.dtype))
-            r2 = jnp.maximum(d2, min_r2)
-            if with_types:
-                U, dU = pair_eval(consts, r2, ti, tj)
-            else:
-                U, dU = pair_eval(consts, r2)
-            s_scr[:, lo_r:hi_r, :] = jnp.where(ok, dU, zero)
-            if needs_energy:
-                g_scr[:, lo_r:hi_r, :] = jnp.where(ok, U, zero)
+    rows = jnp.arange(R, dtype=jnp.int32)
 
-        @pl.when(lo_r >= omax)
-        def _(lo_r=lo_r, hi_r=hi_r):
-            w = hi_r - lo_r
-            s_scr[:, lo_r:hi_r, :] = jnp.zeros((B, w, C), dtype=dtype)
-            if needs_energy:
-                g_scr[:, lo_r:hi_r, :] = jnp.zeros((B, w, C), dtype=dtype)
+    def tile(g, acc):
+        r = g * R + rows
+        r_ok = r < occ
 
-    # moment planes: K = 4 (force) or 10 (+virial)
-    K = 10 if needs_virial else 4
-    one_c = jnp.ones((1, C), dtype=dtype)
-    q_x, q_y, q_z = gx[:, :cap], gy[:, :cap], gz[:, :cap]
-    one_cap = jnp.ones((1, cap), dtype=dtype)
-    Rs, Es, Bks, Ebks = [], [], [], []
-    for b in range(B):
-        sb = s_scr[b]                                      # [cap, C]
-        grows = [one_c, gx[b:b + 1], gy[b:b + 1], gz[b:b + 1]]
-        qrows = [one_cap, q_x[b:b + 1], q_y[b:b + 1], q_z[b:b + 1]]
-        if needs_virial:
-            grows += [gx[b:b + 1] * gx[b:b + 1],
-                      gy[b:b + 1] * gy[b:b + 1],
-                      gz[b:b + 1] * gz[b:b + 1],
-                      gx[b:b + 1] * gy[b:b + 1],
-                      gx[b:b + 1] * gz[b:b + 1],
-                      gy[b:b + 1] * gz[b:b + 1]]
-            qrows += [q_x[b:b + 1] * q_x[b:b + 1],
-                      q_y[b:b + 1] * q_y[b:b + 1],
-                      q_z[b:b + 1] * q_z[b:b + 1],
-                      q_x[b:b + 1] * q_y[b:b + 1],
-                      q_x[b:b + 1] * q_z[b:b + 1],
-                      q_y[b:b + 1] * q_z[b:b + 1]]
-        Gb = jnp.concatenate(grows, axis=0)                # [K, C]
-        Qb = jnp.concatenate(qrows, axis=0)                # [K, cap]
-        Rs.append(jax.lax.dot_general(
-            sb, Gb, (((1,), (1,)), ((), ())),
-            preferred_element_type=dtype))                 # [cap, K]
-        Bks.append(jax.lax.dot_general(
-            Qb, sb, (((1,), (0,)), ((), ())),
-            preferred_element_type=dtype))                 # [K, C]
-        if needs_energy:
-            gb = g_scr[b]
-            Es.append(jax.lax.dot_general(
-                gb, one_c, (((1,), (1,)), ((), ())),
-                preferred_element_type=dtype))             # [cap, 1]
-            Ebks.append(jax.lax.dot_general(
-                one_cap, gb, (((1,), (0,)), ((), ())),
-                preferred_element_type=dtype))             # [1, C]
-    R = jnp.stack(Rs, axis=0)                              # [B, cap, K]
-    Bk = jnp.stack(Bks, axis=0)                            # [B, K, C]
+        def row(ref):
+            return plgpu.load(ref.at[cell, pl.ds(g * R, R)], mask=r_ok,
+                              other=0.0)
 
-    oi = 0
-    if needs_energy:
-        E = jnp.stack(Es, axis=0)                          # [B, cap, 1]
-        Ebk = jnp.stack(Ebks, axis=0)                      # [B, 1, C]
-        out_refs[0][:, :cap] = 0.5 * E[:, :, 0]
-        out_refs[0][:, cap:] = (0.5 * Ebk[:, 0, :])[:, cap:]
-        oi = 1
-    R0, R1, R2, R3 = R[:, :, 0], R[:, :, 1], R[:, :, 2], R[:, :, 3]
-    S1, SX, SY, SZ = Bk[:, 0, :], Bk[:, 1, :], Bk[:, 2, :], Bk[:, 3, :]
-    out_refs[oi + 0][:, :cap] = 2.0 * (R1 - q_x * R0)
-    out_refs[oi + 1][:, :cap] = 2.0 * (R2 - q_y * R0)
-    out_refs[oi + 2][:, :cap] = 2.0 * (R3 - q_z * R0)
-    out_refs[oi + 0][:, cap:] = (-2.0 * (gx * S1 - SX))[:, cap:]
-    out_refs[oi + 1][:, cap:] = (-2.0 * (gy * S1 - SY))[:, cap:]
-    out_refs[oi + 2][:, cap:] = (-2.0 * (gz * S1 - SZ))[:, cap:]
-    if needs_virial:
-        # fwd: sum_j s*da*db = Sg(ab) - qa*Sg(b) - qb*Sg(a) + qa*qb*S ;
-        # back: sum_i s*da*db = ga*gb*S1 - ga*S(b) - gb*S(a) + S(ab);
-        # channel coefficient -1 on both sides (v1 dual convention)
-        fq = {"x": (q_x, R1), "y": (q_y, R2), "z": (q_z, R3)}
-        fg = {"xx": 4, "yy": 5, "zz": 6, "xy": 7, "xz": 8, "yz": 9}
-        bg = {"x": (gx, SX), "y": (gy, SY), "z": (gz, SZ)}
-        for k, (a, bnm) in enumerate(
-                [("x", "x"), ("y", "y"), ("z", "z"),
-                 ("x", "y"), ("x", "z"), ("y", "z")]):
-            qa, Ra = fq[a]
-            qb, Rb = fq[bnm]
-            Rab = R[:, :, fg[a + bnm]]
-            out_refs[oi + 3 + k][:, :cap] = -(
-                Rab - qa * Rb - qb * Ra + qa * qb * R0)
-            ga, Sa = bg[a]
-            gb_, Sb = bg[bnm]
-            Sab = Bk[:, fg[a + bnm], :]
-            out_refs[oi + 3 + k][:, cap:] = (-(
-                ga * gb_ * S1 - ga * Sb - gb_ * Sa + Sab))[:, cap:]
-
-
-def _kernel_row(pair_eval, const_shapes, with_types, rcut_matrix, cap,
-                n_blocks, rc2, min_r2, needs_virial, needs_energy, *refs):
-    """Rank-2 per-row variant of :func:`_kernel`: rows are processed one
-    at a time, so every op in the body is a 2-D ``[B, C]`` VPU op (cells
-    ride the sublane axis, candidates the lane axis).
-
-    Same lane count as the 8-row-group form, radically different Mosaic
-    lowering: the group form's rank-3 broadcasts (``[B,1,C] - [B,w,1]``)
-    lower to per-(row, group) lane-broadcast + masked tile dances, and
-    measured ~9x slower than this form at the production shapes
-    (probes/kbench17 -- the group form had itself beaten the
-    unpredicated full-stencil XLA form, so this is the third lowering of
-    the same physics to win a round). Per-row predication is also
-    strictly tighter than per-group: each ghost row is skipped
-    individually.
-    """
-    C = n_blocks * cap
-    occ_ref = refs[0]
-    gx_ref, gy_ref, gz_ref = refs[1:4]
-    i = 4
-    gt_ref = None
-    if with_types or rcut_matrix is not None:
-        gt_ref = refs[i]
-        i += 1
-    consts = []
-    for shp in const_shapes:
-        ref = refs[i]
-        i += 1
-        if shp == ():
-            consts.append(ref[0, 0])
-        elif len(shp) == 1:
-            consts.append(ref[:].reshape(shp))
+        qx, qy, qz = row(gx_ref), row(gy_ref), row(gz_ref)
+        dx = gx[None, :] - qx[:, None]                     # [R, CH]
+        dy = gy[None, :] - qy[:, None]
+        dz = gz[None, :] - qz[:, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        # the self pair sits on the diagonal of block 0 (col == row)
+        ok = ((d2 <= rc2) & r_ok[:, None] & col_ok[None, :] &
+              (col[None, :] != r[:, None]))
+        ti = row(gt_ref)[:, None] if gt_ref is not None else None
+        if rcut_matrix is not None:
+            from .nlist import pair_rc2
+            ok = ok & (d2 <= pair_rc2(ti, tj, rcut_matrix, dtype))
+        r2 = jnp.maximum(d2, min_r2)
+        if with_types:
+            U, dU = pair_eval(consts, r2, ti, tj)
         else:
-            consts.append(ref[:])
-    out_refs = refs[i:]
+            U, dU = pair_eval(consts, r2)
+        s = jnp.where(ok, dU, zero)
+        # (product, row-side coefficient, candidate-side coefficient)
+        prods = []
+        if needs_energy:
+            prods.append((jnp.where(ok, U, zero), 0.5, 0.5))
+        prods += [(s * dx, 2.0, -2.0), (s * dy, 2.0, -2.0),
+                  (s * dz, 2.0, -2.0)]
+        if needs_virial:
+            prods += [(s * a * b, -1.0, -1.0) for a, b in
+                      ((dx, dx), (dy, dy), (dz, dz),
+                       (dx, dy), (dx, dz), (dy, dz))]
+        out = []
+        for (p, fwd_c, back_c), fref, a in zip(prods, fwd_refs, acc):
+            plgpu.store(fref.at[cell, k, pl.ds(g * R, R)],
+                        fwd_c * jnp.sum(p, axis=1))
+            out.append(a + back_c * jnp.sum(p, axis=0))
+        return tuple(out)
 
-    gx, gy, gz = gx_ref[:], gy_ref[:], gz_ref[:]          # [B, C]
-    if gt_ref is not None:
-        gt = gt_ref[:]
-    B = gx.shape[0]
-    omax = occ_ref[0, 0]
-    for b in range(1, B):
-        omax = jnp.maximum(omax, occ_ref[b, 0])
+    n_tiles = (occ + R - 1) // R
+    acc = jax.lax.fori_loop(
+        0, n_tiles, tile, tuple(jnp.zeros((CH,), dtype) for _ in range(n_q)))
 
-    for r in out_refs:
-        r[:] = jnp.zeros_like(r)
+    def zero_tile(g, carry):
+        # outputs are not initialised: unoccupied tiles get zero partials
+        for fref in fwd_refs:
+            plgpu.store(fref.at[cell, k, pl.ds(g * R, R)],
+                        jnp.zeros((R,), dtype))
+        return carry
 
-    zero = jnp.zeros((), dtype=gx.dtype)
-    col = jax.lax.broadcasted_iota(jnp.int32, (B, C), 1)
-    for row in range(cap):
-        @pl.when(row < omax)
-        def _(row=row):
-            dx = gx - gx[:, row:row + 1]                  # [B, C]
-            dy = gy - gy[:, row:row + 1]
-            dz = gz - gz[:, row:row + 1]
-            d2 = dx * dx + dy * dy + dz * dz
-            ok = (d2 <= rc2) & (col != row)
-            if gt_ref is not None:
-                ti = gt[:, row:row + 1]                   # [B, 1]
-            if rcut_matrix is not None:
-                from .nlist import pair_rc2
-                ok = ok & (d2 <= pair_rc2(ti, gt, rcut_matrix, d2.dtype))
-            r2 = jnp.maximum(d2, min_r2)
-            if with_types:
-                U, dU = pair_eval(consts, r2, ti, gt)
-            else:
-                U, dU = pair_eval(consts, r2)
-            s = jnp.where(ok, dU, zero)
-
-            def dual(prod, fwd_c, back_c, out_ref):
-                out_ref[:, row:row + 1] = fwd_c * jnp.sum(
-                    prod, axis=1, keepdims=True)
-                out_ref[:, cap:] = out_ref[:, cap:] + back_c * prod[:, cap:]
-
-            oi = 0
-            if needs_energy:
-                g_ = jnp.where(ok, U, zero)
-                dual(g_, 0.5, 0.5, out_refs[0])
-                oi = 1
-            dual(s * dx, 2.0, -2.0, out_refs[oi + 0])
-            dual(s * dy, 2.0, -2.0, out_refs[oi + 1])
-            dual(s * dz, 2.0, -2.0, out_refs[oi + 2])
-            if needs_virial:
-                dual(s * dx * dx, -1.0, -1.0, out_refs[oi + 3])
-                dual(s * dy * dy, -1.0, -1.0, out_refs[oi + 4])
-                dual(s * dz * dz, -1.0, -1.0, out_refs[oi + 5])
-                dual(s * dx * dy, -1.0, -1.0, out_refs[oi + 6])
-                dual(s * dx * dz, -1.0, -1.0, out_refs[oi + 7])
-                dual(s * dy * dz, -1.0, -1.0, out_refs[oi + 8])
+    jax.lax.fori_loop(n_tiles, -(-cap // R), zero_tile, 0)
+    # block 0's candidate side is the self cell counted a second time,
+    # already covered by the row side: only directed blocks are stored
+    back_ok = col_ok & (col >= cap)
+    for bref, a in zip(back_refs, acc):
+        plgpu.store(bref.at[cell, pl.ds(k * CH, CH)], a, mask=back_ok)
 
 
 def half_stencil_pair_forces(positions, types, valid, plan, lo, pair_fn,
                              needs_virial=False, min_r2=1e-4,
                              with_types=False, rcut_matrix=None,
-                             lengths=None, block_cells=None,
-                             needs_energy=True, interpret=False,
-                             lane_dtype=None, row_form=None, mm_form=None,
-                             mesh=None, shard_axis=None):
+                             lengths=None, needs_energy=True,
+                             interpret=False, mesh=None, shard_axis=None):
     """Drop-in equivalent of :func:`.cellwise.analytic_pair_forces`
-    computed by the Pallas half-stencil kernel (same contract, same
-    returns; see that docstring for the physics and masking rules).
+    computed by the half-stencil kernel (same contract, same returns;
+    see that docstring for the physics and masking rules).
 
-    :param block_cells: cells per kernel grid step (default 8 -- the
-        smallest Mosaic-legal block, which keeps the occupancy predicate
-        tight; see ``_kernel``).
-    :param interpret: run the kernel in interpreter mode (CPU tests).
-    :param lane_dtype: optional reduced precision (``jnp.bfloat16``) for
-        the pair lanes: candidate planes are cast on entry, the whole
-        lane computation (displacements, pair function, dual reductions)
-        runs at that precision, and the per-cell sums are cast back.
-        Opt-in only -- bf16 displacement cancellation costs ~1e-2
-        relative force error through an r^-12 core (see
-        docs/performance.md for the measured accuracy/speed tradeoff).
+    :param interpret: run the kernel in the Pallas interpreter (CPU).
     :param mesh: optional :class:`jax.sharding.Mesh`: run the kernel
-        SPMD over ``shard_axis``. The key observation making this a
-        small wrapper rather than a halo protocol: the kernel's grid
-        steps are *row-independent over cells* -- every cross-cell data
-        dependency (the 14 candidate gathers and the 13 Newton
-        back-pushes) lives in the XLA rolls outside the kernel
-        (``_relative_coords`` / ``_roll_back``), where sharding
-        propagation already turns the z-axis rolls into collective
-        permutes over ICI. The halo exchange therefore *happens in the
-        candidate planes themselves*; the ``pallas_call`` -- the one op
-        XLA cannot partition -- is wrapped in ``shard_map`` and simply
-        runs on each device's contiguous z-slab block of cells (the
-        cell order is z-major, so row sharding IS the spatial
-        decomposition; the MPI analog of SURVEY.md section 2.3).
+        SPMD over ``shard_axis``. The kernel's programs are independent
+        over cells -- every cross-cell dependency (the 14 candidate
+        gathers and the 13 Newton back-pushes) lives in the XLA rolls
+        outside it, where sharding propagation turns the z-axis rolls
+        into collective permutes. The halo exchange therefore happens in
+        the candidate planes themselves, and the ``pallas_call`` -- the
+        one op XLA cannot partition -- is wrapped in ``shard_map`` and
+        runs on each device's contiguous z-slab block of cells (the cell
+        order is z-major, so row sharding IS the spatial decomposition).
     """
     dtype = positions.dtype
-    out_dtype = dtype if lane_dtype is None else jnp.dtype(lane_dtype)
-    if row_form is None:
-        # default: the 8-row-group form. The rank-2 per-row variant
-        # measured ~9x faster in a STANDALONE scan probe (kbench17/18)
-        # but 2x SLOWER inside the production engine step (560 -> 275
-        # steps/s at 64k -- the per-row read-modify-write of the back
-        # slab serializes against the surrounding fusion in a way the
-        # standalone probe never sees). Same lesson as every layout
-        # trick in docs/performance.md: re-measure END TO END.
-        import os
-        row_form = os.environ.get("HTF_PALLAS_ROW_FORM", "0") == "1"
-    if lane_dtype is not None:
-        # the reduced-precision path keeps the group form: rank-2 bf16
-        # per-row ops hit the same Mosaic crash as rank-3 (kbench17)
-        row_form = False
-    if mm_form is None:
-        # opt-in only (HTF_PALLAS_MM=1): the MXU-contraction dual form
-        # ("kernel v2a", probes/kbench25) moves the v1 dual reductions
-        # to two small matmuls per cell on the otherwise-idle MXU.
-        # Measured at the honest 64k state: ~1.1x on the kernel at
-        # DEFAULT matmul precision -- but DEFAULT on TPU is bf16
-        # multiplies, and contracting the scalar field against
-        # cell-relative coordinates (|g| up to the cell size, true
-        # differences down to ~sigma) amplifies bf16 rounding to ~8e-3
-        # RELATIVE force error, unacceptable for MD; HIGHEST (6-pass
-        # f32 emulation) restores 6e-7 but lands 1.5x SLOWER than v1.
-        # Kept as an experiment: the form is the right shape for a
-        # future fp8/bf16-native potential table.
-        import os
-        mm_form = (not row_form and lane_dtype is None and
-                   os.environ.get("HTF_PALLAS_MM", "0") == "1")
-    if row_form or lane_dtype is not None:
-        mm_form = False
     n_cells, cap = plan.n_cells, plan.capacity
     offs_list = _HALF_OFFS
     n_blocks = len(offs_list)
     C = n_blocks * cap
+    n_chunks, _ = lane_chunks(C)
+    rows_pad = -(-cap // ROW_TILE) * ROW_TILE
     _, _, _, gx, gy, gz = _relative_coords(
         positions, valid, plan, lo, offs_list, lengths)
-
-    need_types = with_types or rcut_matrix is not None
     inputs = [gx, gy, gz]
-    if need_types:
-        from .cellwise import _roll_offs
+    if with_types or rcut_matrix is not None:
         inputs.append(_roll_offs(types.astype(dtype), plan, offs_list))
+    occ = valid.reshape(n_cells, cap).sum(axis=1).astype(jnp.int32)
 
-    n_out = (1 if needs_energy else 0) + 3 + (6 if needs_virial else 0)
-    # grid blocking: pad n_cells to a multiple of the block size. Padded
-    # rows replicate row 0's candidates with ZERO occupancy (every row
-    # group predicated off); their outputs are zeros and sliced off
-    # before the roll-back.
-    if block_cells is None:
-        # small blocks make the occupancy predicate tight: the row
-        # groups run up to the max occupancy OF THE BLOCK, and the max
-        # over 8 cells sits well below the max over 24 (measured at the
-        # honest 64k fluid, kbench14: B=8 beats both B=16 and B=24, and
-        # beats the unpredicated B=24 form by 1.16x). The per-group
-        # working set [B, 8, C] is far under the VMEM limit at this
-        # size.
-        block_cells = 8
-    if lane_dtype is not None and jnp.dtype(lane_dtype).itemsize < 4:
-        # bf16 tiles are (16, 128): the out block's sublane dim (B) must
-        # be a multiple of 16
-        block_cells = max(16, (int(block_cells) // 16) * 16)
-    B = int(block_cells)
-    occ = valid.reshape(n_cells, cap).sum(axis=1).astype(jnp.int32)[:, None]
-    if lane_dtype is not None:
-        inputs = [a.astype(out_dtype) for a in inputs]
-
-    # hoist everything pair_fn closed over (built-in epsilon/sigma, NN
-    # weights from the lane-separability probe, outer-jit tracers) into
-    # explicit kernel operands: Pallas rejects captured array constants,
-    # and tracers must be operands anyway. make_jaxpr splits the closure
-    # into (constvars, eval) for us; the jaxpr is traced at the exact
-    # in-kernel block shapes so eval_jaxpr replays it verbatim.
+    # hoist every constant pair_fn closed over (built-in epsilon/sigma,
+    # proxy coefficients, outer-jit tracers) into one operand of
+    # scalars; the jaxpr traced at the kernel's tile shapes is replayed
+    # verbatim inside the kernel
     from jax._src import core as _jcore
-    sds = lambda s: jax.ShapeDtypeStruct(s, out_dtype)
-    # the group kernel evaluates pair_fn per 8-row group (plus a narrower
-    # tail when cap % 8): one shape-specialized jaxpr per distinct width.
-    # The row kernel evaluates per row: one rank-2 [B, C] jaxpr, keyed by
-    # width C. make_jaxpr of the same closure is deterministic, so the
-    # hoisted consts line up across widths (asserted).
-    if row_form:
-        widths = [C]
-    else:
-        widths = sorted({min(cap, (g + 1) * 8) - g * 8
-                         for g in range(-(-cap // 8))})
+    closed = _trace_pair_fn(pair_fn, with_types, dtype)
+    consts = [jnp.asarray(c) for c in closed.consts]
+    if any(c.size != 1 for c in consts):
+        raise ValueError(
+            "pair_fn closes over non-scalar arrays; the half-stencil "
+            "kernel takes scalar constants only (see pair_fn_lowers)")
+    const_dtypes = tuple(c.dtype for c in consts)
+    const_shapes = tuple(c.shape for c in consts)
+    small = []
+    if consts:
+        small = [jnp.stack([c.reshape(()).astype(jnp.float32)
+                            for c in consts])]
 
-    def trace(w):
-        if row_form:
-            pair_args = ([sds((B, C)), sds((B, 1)), sds((B, C))]
-                         if with_types else [sds((B, C))])
-        else:
-            pair_args = ([sds((B, w, C)), sds((B, w, 1)), sds((B, 1, C))]
-                         if with_types else [sds((B, w, C))])
-        return jax.make_jaxpr(pair_fn)(*pair_args)
+    def pair_eval(cvals, r2, *args):
+        cvals = [v.reshape(s) for v, s in zip(cvals, const_shapes)]
+        return tuple(_jcore.eval_jaxpr(closed.jaxpr, cvals, r2, *args))
 
-    closed_by_w = {w: trace(w) for w in widths}
-    closed0 = closed_by_w[widths[0]]
-    for cl in closed_by_w.values():
-        assert len(cl.consts) == len(closed0.consts) and \
-            all(np.shape(a) == np.shape(b)
-                for a, b in zip(cl.consts, closed0.consts)), \
-            "pair_fn closure consts differ across trace widths"
-    small = []                  # whole-array-per-grid-step operands
-    const_shapes = []
-    for c in closed0.consts:
-        c = jnp.asarray(c)
-        const_shapes.append(c.shape)
-        small.append(c if c.ndim >= 2 else c.reshape(1, max(c.size, 1)))
-    if lane_dtype is not None:
-        small = [c.astype(out_dtype) if jnp.issubdtype(c.dtype, jnp.floating)
-                 else c for c in small]
-
-    def pair_eval(consts, r2, *args):
-        jaxpr = closed_by_w[r2.shape[1]].jaxpr
-        return tuple(_jcore.eval_jaxpr(jaxpr, consts, r2, *args))
-
-    rc2 = float(plan.r_cut) ** 2
+    n_q = (1 if needs_energy else 0) + 3 + (6 if needs_virial else 0)
     kernel = functools.partial(
-        _kernel_mm if mm_form else (_kernel_row if row_form else _kernel),
-        pair_eval, const_shapes, with_types,
+        _kernel, pair_eval, const_dtypes, with_types,
         None if rcut_matrix is None else np.asarray(rcut_matrix),
-        cap, n_blocks,
-        float(rc2), float(min_r2), needs_virial, needs_energy)
-
-    from jax.experimental.pallas import tpu as pltpu
-    spec = pl.BlockSpec((B, C), lambda i: (i, 0))
-    occ_spec = pl.BlockSpec((B, 1), lambda i: (i, 0),
-                            memory_space=pltpu.SMEM)
-    small_specs = [pl.BlockSpec(s.shape, (lambda i, nd=s.ndim: (0,) * nd))
-                   for s in small]
+        cap, C, float(plan.r_cut) ** 2, float(min_r2), needs_virial,
+        needs_energy)
     n_in = len(inputs)
 
     def _call(occ_l, *ops):
-        """Pad a (possibly per-shard) block of cells to a multiple of B
-        and run the kernel on it. Padded rows replicate the edge cell's
-        candidates; their row outputs are garbage but sliced off before
-        the roll-back, and they never appear as candidates (the planes
-        were gathered before padding)."""
-        ins_l, small_l = list(ops[:n_in]), ops[n_in:]
         nloc = occ_l.shape[0]
-        npad = -(-nloc // B) * B
-        if npad != nloc:
-            occ_l = jnp.pad(occ_l, ((0, npad - nloc), (0, 0)))
-            ins_l = [jnp.pad(a, ((0, npad - nloc), (0, 0)), mode="edge")
-                     for a in ins_l]
-        scratch = []
-        if mm_form:
-            # the masked scalar field s (and U when energy is on) lives
-            # in a VMEM scratch between the predicated lane loop and the
-            # unpredicated matmul pass (Mosaic rejects dots inside
-            # pl.when regions that already contain a sublane dot)
-            scratch = [pltpu.VMEM((B, cap, C), out_dtype)]
-            if needs_energy:
-                scratch.append(pltpu.VMEM((B, cap, C), out_dtype))
+        back_shape = jax.ShapeDtypeStruct((nloc, C), dtype)
+        fwd_shape = jax.ShapeDtypeStruct((nloc, n_chunks, rows_pad), dtype)
         outs = pl.pallas_call(
             kernel,
-            grid=(npad // B,),
-            in_specs=[occ_spec] + [spec] * n_in + small_specs,
-            out_specs=[spec] * n_out,
-            out_shape=[jax.ShapeDtypeStruct((npad, C), out_dtype)] * n_out,
-            scratch_shapes=scratch,
+            grid=(nloc, n_chunks),
+            out_shape=[back_shape] * n_q + [fwd_shape] * n_q,
+            compiler_params=plgpu.CompilerParams(num_warps=4,
+                                                 num_stages=1),
             interpret=interpret,
-        )(occ_l, *ins_l, *small_l)
-        return tuple(o[:nloc] for o in outs)
+            name="half_stencil_pair_forces",
+        )(occ_l, *ops)
+        return tuple(outs)
 
     if mesh is None:
         outs = _call(occ, *inputs, *small)
@@ -648,30 +295,30 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, pair_fn,
                 f"mesh (the plan must keep nz divisible by the mesh)")
         outs = jax.shard_map(
             _call, mesh=mesh,
-            in_specs=(P(shard_axis),
-                      *([P(shard_axis)] * n_in), *([P()] * len(small))),
-            out_specs=(P(shard_axis),) * n_out,
+            in_specs=(P(shard_axis), *([P(shard_axis)] * n_in),
+                      *([P()] * len(small))),
+            out_specs=(P(shard_axis),) * (2 * n_q),
             check_vma=False)(occ, *inputs, *small)
 
-    def assemble(out):
-        acc = out[:n_cells, :cap].astype(dtype)
+    def assemble(back, fwd):
+        acc = jnp.sum(fwd, axis=1)[:, :cap]
         for t in range(1, n_blocks):
-            acc = acc + _roll_back(
-                out[:n_cells, t * cap:(t + 1) * cap], plan,
-                offs_list[t]).astype(dtype)
+            acc = acc + _roll_back(back[:, t * cap:(t + 1) * cap], plan,
+                                   offs_list[t])
         return acc.reshape(-1)
 
+    sums = [assemble(b, f) for b, f in zip(outs[:n_q], outs[n_q:])]
     oi = 0
     if needs_energy:
-        e = assemble(outs[0])
+        e = sums[0]
         oi = 1
     else:
         e = jnp.zeros((plan.n_slots,), dtype=dtype)
-    fx, fy, fz = (assemble(o) for o in outs[oi:oi + 3])
+    fx, fy, fz = sums[oi:oi + 3]
     forces4 = jnp.stack([fx, fy, fz, e], axis=-1) * valid[:, None]
     virial = None
     if needs_virial:
-        wxx, wyy, wzz, wxy, wxz, wyz = (assemble(o) for o in outs[oi + 3:])
+        wxx, wyy, wzz, wxy, wxz, wyz = sums[oi + 3:]
         W = jnp.stack([
             jnp.stack([wxx, wxy, wxz], -1),
             jnp.stack([wxy, wyy, wyz], -1),

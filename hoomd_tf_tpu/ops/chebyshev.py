@@ -4,20 +4,18 @@
 The cellwise analytic route evaluates the pair function on EVERY padded
 candidate lane ([n_cells, cap, 14*cap] at 64k). For a closed-form LJ
 that is ~10 flops/lane; for an ML pair potential it is an MLP whose
-per-lane activations dwarf the physics (the measured ~28x online-
-training tax of ROADMAP perf #4, and the reason NN pair energies are
-rejected by the Mosaic probe: a hidden axis per lane rank-upgrades the
-kernel).
+per-lane activations dwarf the physics (and whose hidden axis per lane
+keeps it out of the half-stencil kernel, ops/cellwise_pallas).
 
 A pair potential is one smooth scalar function ``U(r2)`` on
 ``[r2_lo, r_cut^2]``. So: evaluate the model at ``K`` Chebyshev nodes
 (K ~ 16 -- lane-count-independent), fit Chebyshev coefficients with one
 ``[K, K]`` constant matmul, and evaluate per lane with a Clenshaw
-recurrence -- pure fused multiply-adds, Mosaic-lowerable, no per-lane
-activations. Training composes for free: the lane-contraction VJP
-(ops/pair_train.py) differentiates the contraction w.r.t. the
-coefficients (the Clenshaw backward is one fused lane pass), and the
-chain through the node fit and the model-at-nodes is K-sized.
+recurrence -- pure fused multiply-adds that the half-stencil kernel
+can replay, no per-lane activations. Training composes for free: the
+lane-contraction VJP (ops/pair_train.py) differentiates the contraction
+w.r.t. the coefficients (the Clenshaw backward is one fused lane pass),
+and the chain through the node fit and the model-at-nodes is K-sized.
 
 Interpolation runs in ``u = 1/r2`` (inverse-square) space, where
 LJ-family cores are LOW-DEGREE POLYNOMIALS (LJ itself is degree 6 in u:
@@ -37,8 +35,9 @@ Beyond reference scope (the reference evaluates TF models verbatim);
 the MD-community analog is tabulated potentials (hoomd.md.pair.table).
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 
 __all__ = ["pair_proxy", "make_pair_proxy", "make_typed_pair_proxy",
            "clenshaw"]
@@ -132,8 +131,11 @@ def make_pair_proxy(degree, r2_lo, r2_hi, dtype=None):
         r2_nodes = jnp.asarray(r2_nodes_np, dtype=fit_dtype)
         U_k, _ = pair_energy_and_slope(r2_nodes)
         Dj = jnp.asarray(D, dtype=fit_dtype)
-        c = Dj @ U_k.astype(fit_dtype)
-        cd = jnp.asarray(Dd, dtype=fit_dtype) @ c
+        # full-precision products: these coefficients set the proxy's
+        # energy and force for every lane (TF32 would cost ~3 digits)
+        hi = jax.lax.Precision.HIGHEST
+        c = jnp.matmul(Dj, U_k.astype(fit_dtype), precision=hi)
+        cd = jnp.matmul(jnp.asarray(Dd, dtype=fit_dtype), c, precision=hi)
         return {"c": [c[j] for j in range(K)],
                 "cd": [cd[j] for j in range(K)]}
 
@@ -153,15 +155,6 @@ def make_pair_proxy(degree, r2_lo, r2_hi, dtype=None):
         su = jnp.where(in_range, su, s_hi)
         return U, -su * u * u
 
-    # static basis description: lets the lane-contraction VJP
-    # (ops/pair_train.py) recognize this evaluator as LINEAR in its
-    # coefficients and compute the whole parameter gradient as K
-    # weighted lane-moment sums in a Pallas kernel
-    # (ops/pair_train_pallas.py) instead of XLA-differentiating the
-    # rank-3 lane structure.
-    evaluate.basis = {"K": K, "mid": float(mid),
-                      "inv_half": float(inv_half), "u_hi": float(u_hi),
-                      "pairs": None}
     return fit, evaluate
 
 
@@ -220,5 +213,4 @@ def make_typed_pair_proxy(degree, r2_lo, r2_hi, n_types, dtype=None):
         eff = {"c": blend("c"), "cd": blend("cd")}
         return eval_u(eff, r2)
 
-    evaluate.basis = dict(eval_u.basis, pairs=tuple(pairs))
     return fit, evaluate

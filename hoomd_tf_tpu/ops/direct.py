@@ -1,9 +1,9 @@
 """Wide-direct neighbor mode: component-separated candidate planes.
 
 The packed ``[N, NN, 4]`` neighbor list costs a nearest-NN *selection*
-(sort or min-extraction -- the dominant cost of the standard build at
-scale) and materializes with a (8,128)-padded trailing dimension. This
-mode skips both: the model receives the 27-cell *candidate planes*
+(a sort -- the dominant cost of the standard build at scale) and
+materializes an array with a trailing dimension of 4. This mode skips
+both: the model receives the 27-cell *candidate planes*
 directly --
 
     NlistPlanes(dx, dy, dz, type)    # each [N, C], C = 27 * cell capacity

@@ -185,7 +185,8 @@ def _compute_virial(nlist, nlist_forces):
     """
     nlist3 = nlist[:, :, :3]
     f = nlist_forces[..., :3]
-    outer = jnp.einsum("ijk,ijl->ikl", f, nlist3)
+    outer = jnp.einsum("ijk,ijl->ikl", f, nlist3,
+                       precision=jax.lax.Precision.HIGHEST)
     return -0.25 * (outer + jnp.swapaxes(outer, -1, -2))
 
 

@@ -4,11 +4,9 @@ Two implementations:
 
 - :func:`compute_nlist` -- dense O(N^2) masked top-k, matching the reference
   (``utils.py:75-161``) semantics exactly. Used as the correctness oracle,
-  for trajectory iteration, and for small systems where N^2 on the MXU is
-  actually the fastest option (the pair-distance cross term ``-2 x_i . x_j``
-  is a matmul).
+  for trajectory iteration, and for small systems.
 - :func:`cell_list_nlist` (see :mod:`.cell_list`) -- O(N) binned build for
-  large systems; the TPU-native replacement for the reference's CSR->dense
+  large systems; the replacement for the reference's CSR->dense
   CUDA kernel (``TensorflowCompute.cu:80-209``).
 
 All outputs use the reference convention: ``[N, NN, 4]`` where the last axis
@@ -32,9 +30,9 @@ def pair_rc2(type_i, type_j, r_cut_matrix, dtype):
     ``d2 <= rc2`` is always False).
 
     Implemented as ``ntypes**2`` fused mask-multiply terms rather than a
-    table gather: dynamic element gathers are the slowest primitive on
-    TPU (~1e8 elem/s) while this stays pure VPU work; particle-type
-    counts are small (the reference's systems use 2-6 types).
+    table gather, so it stays elementwise (and replays inside the
+    half-stencil kernel); particle-type counts are small (the
+    reference's systems use 2-6 types).
 
     :param type_i, type_j: broadcastable integer (or float-typed) arrays.
     :param r_cut_matrix: concrete ``[T, T]`` host matrix.

@@ -91,7 +91,7 @@ def nlist_rinv(nlist):
 def masked_nlist(nlist, type_tensor, type_i=None, type_j=None):
     """Neighbor list masked by particle type(s).
 
-    Mirrors reference ``simmodel.py:672-693`` with one TPU-native deviation:
+    Mirrors reference ``simmodel.py:672-693`` with one deviation:
     ``type_i`` filtering *zeroes out* non-matching particle rows instead of
     removing them (``tf.boolean_mask`` produces a dynamic shape, which is
     incompatible with XLA's static-shape compilation; a zero row contributes

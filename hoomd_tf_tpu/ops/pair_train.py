@@ -9,9 +9,7 @@ per-step labels. Differentiating the analytic pair forward
 rematerializes the whole ``[n_cells, cap, 27*cap]`` lane structure --
 the 27 stencil rolls, the displacement planes, the dual reductions --
 through the backward pass, storing or recomputing several
-hundred-MB-scale intermediates per step. Measured at 64k particles
-that route runs ~20 train-steps/s against ~560 eval-steps/s: the
-training tax is ~28x (ROADMAP perf #4; benchmarks/north_star.json).
+hundred-MB-scale intermediates per step.
 
 The pairwise structure makes the parameter gradient analytic. With
 ``F_i = 2 * sum_j U'(r2_ij; theta) * d_ij`` and
@@ -46,30 +44,11 @@ from .cellwise import _HALF_OFFS, _OFFS, _relative_coords, _roll_offs
 __all__ = ["pair_train_forces"]
 
 
-def _params_match_basis(params, basis):
-    """Does the params pytree have exactly the Chebyshev-proxy
-    coefficient structure the Pallas moment kernel returns gradients
-    for?  (Untyped: ``{"c": [K scalars], "cd": [K scalars]}``; typed:
-    that dict per unordered type pair.)"""
-    K = basis["K"]
-
-    def one(d):
-        return (isinstance(d, dict) and set(d) == {"c", "cd"} and
-                isinstance(d["c"], list) and len(d["c"]) == K and
-                isinstance(d["cd"], list) and len(d["cd"]) == K)
-
-    if basis["pairs"] is None:
-        return one(params)
-    return (isinstance(params, dict) and
-            set(params) == set(basis["pairs"]) and
-            all(one(v) for v in params.values()))
-
-
 def pair_train_forces(params, pair_apply, positions, types, valid, plan,
                       lo, *, min_r2=1e-4, with_types=False,
                       rcut_matrix=None, lengths=None, needs_energy=True,
                       fwd_stencil="full", bwd_stencil="half",
-                      bwd_impl="auto", mesh=None, shard_axis=None):
+                      mesh=None, shard_axis=None):
     """Analytic pair forces, differentiable in ``params`` only, with the
     hand-written lane-contraction VJP described in the module docstring.
 
@@ -93,25 +72,20 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
     :param lengths: dynamic box lengths (traced; NPT), else None.
     :param needs_energy: compute (and differentiate) the energy column.
     :param fwd_stencil: stencil for the PRIMAL evaluation -- 'full',
-        'half', 'pallas' or 'auto'. Any choice is correct for any
-        ``bwd_stencil``: all stencils compute the same function.
+        'half', 'pallas' or 'auto' (:mod:`.routes`). Any choice is
+        correct for any ``bwd_stencil``: all stencils compute the same
+        function.
     :param bwd_stencil: lane set for the backward contraction.
         ``'half'`` (default) evaluates each unordered pair once with
         the Newton-combined weight ``wF = 2 (ct_i - ct_j) . d_ij`` and
         ``wE = 0.5 (cte_i + cte_j)`` -- 14/27 of the padded lanes, the
         dominant cost for expensive (NN) pair functions. Unlike the
-        primal half stencil (whose dual-axis reduction XLA cannot
+        primal half stencil (whose dual-axis reduction XLA does not
         fuse, see ops/cellwise_pallas.py), the contraction is ONE
         scalar reduction, so the half lane set fuses cleanly in XLA.
         Requires ``pair_apply`` symmetric under ``(ti, tj)`` swap (the
         package-wide pair-function contract); ``'full'`` lifts even
         that, evaluating both directions independently.
-    :param bwd_impl: ``'auto'`` rides the Pallas moment kernel
-        (:mod:`.pair_train_pallas`) when ``pair_apply`` carries a
-        Chebyshev ``basis`` (the proxy evaluators do), lanes are f32,
-        no mesh, and the backend is TPU; ``'pallas'`` forces it
-        (interpreted off-TPU -- tests); ``'xla'`` forces the generic
-        rank-3 XLA contraction.
     :returns: ``forces4 [n_slots, 4]`` with energy in column 4.
     """
     from . import cellwise as _cw
@@ -135,29 +109,6 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
         return f(params), params
 
     def bwd(params, ct):
-        basis = getattr(pair_apply, "basis", None)
-        impl = bwd_impl
-        if impl == "auto":
-            import os
-            impl = os.environ.get("HTF_TRAIN_BWD", "auto")
-        if impl != "xla" and basis is not None and \
-                _params_match_basis(params, basis) and \
-                (types is not None or (basis["pairs"] is None and
-                                       rcut_matrix is None)):
-            from .pair_train_pallas import (proxy_bwd_moments,
-                                            supported_basis)
-            if supported_basis(basis, positions.dtype, mesh) and \
-                    (impl == "pallas" or
-                     jax.default_backend() == "tpu"):
-                g_c, g_cd = proxy_bwd_moments(
-                    positions, types, valid, ct, plan, lo, basis,
-                    min_r2=min_r2, rcut_matrix=rcut_matrix,
-                    lengths=lengths, needs_energy=needs_energy,
-                    interpret=jax.default_backend() != "tpu")
-                if basis["pairs"] is None:
-                    return ({"c": g_c, "cd": g_cd},)
-                return ({ab: {"c": g_c[ab], "cd": g_cd[ab]}
-                         for ab in basis["pairs"]},)
         dtype = positions.dtype
         n_cells, cap = plan.n_cells, plan.capacity
         half = bwd_stencil == "half"

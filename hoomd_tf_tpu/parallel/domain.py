@@ -1,4 +1,4 @@
-"""Spatial domain decomposition with ring halo exchange over ICI.
+"""Spatial domain decomposition with ring halo exchange between devices.
 
 The MD twin of ring attention (SURVEY.md section 2.3): the box is split
 into slabs along x, one device per slab; each step every device sends the

@@ -1,8 +1,9 @@
 """Device-mesh helpers.
 
 The reference's distribution story is MPI spatial decomposition through
-HOOMD (SURVEY.md section 2.3); the TPU-native equivalent is a
-``jax.sharding.Mesh`` over ICI with XLA-emitted collectives.
+HOOMD (SURVEY.md section 2.3); the equivalent here is a
+``jax.sharding.Mesh`` over the devices (NVLink-connected GPUs) with
+XLA-emitted collectives.
 """
 
 import jax

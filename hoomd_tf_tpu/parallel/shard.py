@@ -3,7 +3,7 @@
 The particle dimension is sharded by the ENGINE: ``Simulation(mesh=...)``
 (or :class:`.sharded_simulation.ShardedSimulation`) runs the one compiled
 step SPMD with the slot-resident state partitioned along z-slabs -- the
-TPU-native replacement for the reference's MPI spatial decomposition
+replacement for the reference's MPI spatial decomposition
 (SURVEY.md section 2.3). There is deliberately no second particle-sharded
 force path in this package.
 
@@ -38,7 +38,7 @@ def sharded_train_step(model, optimizer, mesh, axis="d"):
     Each device evaluates the model's standard call (the same route
     every single-device path uses -- no bespoke sharded force engine) on
     its local frames, computes the MSE against the per-frame label
-    forces, and the gradients are ``pmean``'d over ICI before one
+    forces, and the gradients are ``pmean``'d across devices before one
     replicated optax update -- the classic data-parallel recipe, applied
     to the reference's offline-training loop (example 08's
     ``train_on_batch`` over ``iter_from_trajectory`` frames).

@@ -7,6 +7,7 @@ the bond graph instead of a per-bond linear scan -- the reference notes its
 own implementation "is a slow function", ``utils.py:236-284``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -218,8 +219,11 @@ def center_of_mass(positions, mapping, box_size, name="center-of-mass"):
     theta = positions / box_dim * 2 * jnp.pi
     xi = jnp.cos(theta)
     zeta = jnp.sin(theta)
-    ximean = mapping @ xi
-    zetamean = mapping @ zeta
+    # full f32 products: a TF32 matmul (the GPU default) would move
+    # bead positions by ~1e-3 of the box
+    with jax.default_matmul_precision("highest"):
+        ximean = mapping @ xi
+        zetamean = mapping @ zeta
     thetamean = jnp.arctan2(zetamean, ximean)
     return thetamean / (2 * jnp.pi) * box_dim
 

@@ -175,7 +175,7 @@ def compute_pairwise(model, r, type_i=0, type_j=0):
     positions = jnp.asarray(positions)
 
     # all separations in ONE device program (vmap over r) -- a host loop
-    # of eager dispatches is latency-bound through a remote TPU
+    # of eager dispatches is dispatch-latency bound
     r = np.asarray(r, dtype=np.float32)
     nlists = np.broadcast_to(base_nlist, (len(r),) + base_nlist.shape) \
         .copy()

@@ -68,49 +68,11 @@ class TestCellListCrossCheck:
             config=htf.CellList(capacity=128), return_overflow=True)
         assert not bool(overflow)
 
-    @pytest.mark.slow
-    def test_pallas_matches_n2(self):
-        """The fused Pallas kernel (interpreted on CPU) finds exactly the
-        same neighbor sets as the dense O(N^2) oracle."""
-        from hoomd_tf_tpu.ops import cell_list as cl
-        n, L, r_cut, NN = 300, 12.0, 3.0, 48
-        pos4 = jnp.asarray(random_system(n, L, seed=7))
-        grid, cap = cl.plan(n, [L, L, L], r_cut)
-        dense = np.asarray(htf.compute_nlist(
-            pos4, r_cut, NN, [L, L, L], sorted=True, return_types=True))
-        pal = np.asarray(cl.cell_list_nlist(
-            pos4, r_cut, NN, jnp.asarray([L, L, L]), grid=grid,
-            capacity=cap, method="pallas", static_lengths=(L, L, L)))
-        a = sets_from_nlist(dense)
-        b = sets_from_nlist(pal)
-        for i in range(n):
-            assert a[i] == b[i], f"particle {i}"
-
     def test_too_small_box_raises(self):
         pos4 = jnp.asarray(random_system(27, 4.0))
         import pytest
         with pytest.raises(ValueError):
             htf.cell_list_nlist(pos4, 3.0, 8, jnp.asarray([4.0, 4.0, 4.0]))
-
-
-class TestPallasInSimulation:
-    @pytest.mark.slow
-    def test_attach_pallas_runs(self):
-        """nlist='pallas' through the full Simulation (interpreter on CPU);
-        forces match the n2 path on identical positions."""
-        n = 600
-        r_cut, NN = 3.0, 48
-
-        def run(method):
-            model = zoo.LJModel(NN)
-            sim = htf.Simulation(dt=0.0, integrator=htf.md.NVE(), seed=5)
-            sim.init_lattice(n, density=0.35, kT_init=1.0)
-            tfc = htf.tfcompute(model)
-            tfc.attach(sim, nlist=method, r_cut=r_cut)
-            sim.run(1)
-            return np.asarray(sim.state.forces)
-
-        np.testing.assert_allclose(run("pallas"), run("n2"), atol=1e-4)
 
 
 class TestDirectMode:

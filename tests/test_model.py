@@ -156,8 +156,8 @@ class TestMixedForceCalls:
 
 class TestBfloat16:
     def test_model_runs_in_bf16(self):
-        """dtype=bfloat16 works end to end (MXU-native precision); ~1e-2
-        force error vs f32 is expected."""
+        """dtype=bfloat16 works end to end (tensor-core-native
+        precision); ~1e-2 force error vs f32 is expected."""
         inputs = make_inputs()
         m16 = zoo.LJModel(8, dtype=jnp.bfloat16)
         out = m16(inputs)[0]

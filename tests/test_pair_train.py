@@ -263,16 +263,17 @@ def test_smoke_gradient_parity_untyped():
     np.testing.assert_allclose(float(g0[0]), float(g1[0]), rtol=2e-4)
 
 
-class TestProxyPallasBackward:
-    """The Pallas moment-kernel backward (ops/pair_train_pallas.py)
-    equals the generic XLA lane contraction for Chebyshev-proxy pair
-    functions -- untyped, typed (per-type-pair tables), and with the
-    energy column off."""
+class TestProxyBackward:
+    """The custom-VJP backward (ops/pair_train.py, XLA lane contraction)
+    equals jax.grad through the plain analytic forward for
+    Chebyshev-proxy pair functions -- untyped, forces only, and typed
+    (per-type-pair tables) -- for both backward lane sets."""
 
-    def _grads(self, impl, typed, needs_energy, rc_matrix=None):
+    def _grads(self, typed, needs_energy, bwd_stencil, rc_matrix=None):
         from hoomd_tf_tpu.ops.chebyshev import (make_pair_proxy,
                                                 make_typed_pair_proxy)
-        plan, layout, slot_state, aux, labels = _slot_setup(typed=typed)
+        plan, layout, slot_state, aux, labels = _slot_setup(n=128,
+                                                            typed=typed)
         r_cut = plan.r_cut
         r2_lo = (0.25 * r_cut) ** 2
         if typed:
@@ -285,40 +286,51 @@ class TestProxyPallasBackward:
                 [jnp.asarray(0.9), jnp.asarray(1.05)], r2,
                 jnp.zeros_like(r2), jnp.zeros_like(r2)))
         cols = 4 if needs_energy else 3
+        geo = (slot_state.positions, slot_state.types, aux["valid"], plan,
+               layout.lo)
 
-        def loss(c):
+        def loss_custom(c):
             f4 = pair_train_forces(
-                c, eval_, slot_state.positions, slot_state.types,
-                aux["valid"], plan, layout.lo, with_types=typed,
-                rcut_matrix=rc_matrix, needs_energy=needs_energy,
-                fwd_stencil="full", bwd_impl=impl)
+                c, eval_, *geo, with_types=typed, rcut_matrix=rc_matrix,
+                needs_energy=needs_energy, fwd_stencil="full",
+                bwd_stencil=bwd_stencil)
             return jnp.mean((f4[:, :cols] - labels[:, :cols]) ** 2)
 
-        return jax.jit(jax.value_and_grad(loss))(coeffs)
+        def loss_plain(c):
+            if typed:
+                pair_fn = lambda r2, ti, tj: eval_(c, r2, ti, tj)
+            else:
+                pair_fn = lambda r2: eval_(c, r2)
+            f4, _ = cw.analytic_pair_forces(
+                *geo, pair_fn, with_types=typed, rcut_matrix=rc_matrix,
+                needs_energy=needs_energy, stencil="full")
+            return jnp.mean((f4[:, :cols] - labels[:, :cols]) ** 2)
 
-    def _check(self, typed, needs_energy, rc_matrix=None):
-        l_x, g_x = self._grads("xla", typed, needs_energy, rc_matrix)
-        l_p, g_p = self._grads("pallas", typed, needs_energy, rc_matrix)
-        assert np.allclose(l_x, l_p, rtol=1e-6)
-        lx = jax.tree_util.tree_leaves(g_x)
+        return (jax.jit(jax.value_and_grad(loss_custom))(coeffs),
+                jax.jit(jax.value_and_grad(loss_plain))(coeffs))
+
+    def _check(self, typed, needs_energy, bwd_stencil, rc_matrix=None):
+        (l_c, g_c), (l_p, g_p) = self._grads(typed, needs_energy,
+                                             bwd_stencil, rc_matrix)
+        np.testing.assert_allclose(float(l_c), float(l_p), rtol=1e-6)
+        lc = jax.tree_util.tree_leaves(g_c)
         lp = jax.tree_util.tree_leaves(g_p)
-        assert len(lx) == len(lp)
-        scale = max(float(np.max(np.abs(np.asarray(v)))) for v in lx)
-        for a, b in zip(lx, lp):
+        assert len(lc) == len(lp)
+        scale = max(float(np.max(np.abs(np.asarray(v)))) for v in lp)
+        for a, b in zip(lc, lp):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                        rtol=2e-4, atol=2e-5 * scale)
 
-    def test_untyped(self):
-        self._check(typed=False, needs_energy=True)
-
-    def test_untyped_forces_only(self):
-        self._check(typed=False, needs_energy=False)
-
-    @pytest.mark.slow
-    def test_typed_table(self):
-        self._check(typed=True, needs_energy=True)
+    @pytest.mark.parametrize("bwd_stencil", ["half", "full"])
+    @pytest.mark.parametrize("typed,needs_energy", [
+        (False, True), (False, False), (True, True)],
+        ids=["untyped", "forces_only", "typed"])
+    def test_matches_plain_autodiff(self, typed, needs_energy,
+                                    bwd_stencil):
+        self._check(typed, needs_energy, bwd_stencil)
 
     @pytest.mark.slow
     def test_typed_with_rcut_matrix(self):
         rc = np.array([[2.5, 1.8], [1.8, 2.2]], dtype=np.float32)
-        self._check(typed=True, needs_energy=True, rc_matrix=rc)
+        self._check(typed=True, needs_energy=True, bwd_stencil="half",
+                    rc_matrix=rc)

@@ -4,7 +4,7 @@
 This is a beyond-parity capability: the reference *rejects* skewed boxes
 (``simmodel.py:195`` raises 'box is skewed' in ``compute_inputs``), so
 trajectories with lattice angles != 90 deg could not be processed at
-all. The TPU engine supports HOOMD's tilt-factor convention
+all. This engine supports HOOMD's tilt-factor convention
 (|tilt| <= 0.5) end to end: binning and cell centers are a regular grid
 in fractional space, stencil offsets pick up the tilt cross terms as
 compile-time constants, and the Pallas kernel is unchanged.
